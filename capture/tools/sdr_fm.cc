@@ -1,7 +1,7 @@
 // Host-side demodulator — rtl_fm.c capability: stream (or read a file
 // of) u8 IQ, demodulate (FM discriminator, AM envelope, USB/LSB phasing,
 // or raw passthrough), decimate, de-emphasize, and write s16 audio. The
-// accelerator path (tdoa_tpu.dsp.fm / the Pallas kernel) is the
+// accelerator path (tdoa_tpu.dsp.fm) is the
 // production demod; this tool covers the reference's standalone-
 // listening use and gives the capture stack a pure-native smoke path.
 // Pipeline mirrors rtl_fm's stages: polar_discriminant (rtl_fm.c:427-434)

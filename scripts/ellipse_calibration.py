@@ -13,8 +13,8 @@ failure mode this framework forbids.
 Regimes with a modeled error budget (clean, noisy, wild-clocks) are
 gated: the script exits nonzero if their pooled 3σ coverage drops
 below 90%. The multipath regime is reported but not gated — specular
-echoes inside the correlation peak BIAS the TDOA (estimator physics,
-BENCHLOG), and a bias is precisely what a noise covariance cannot
+echoes inside the correlation peak BIAS the TDOA (estimator physics),
+and a bias is precisely what a noise covariance cannot
 cover; the processor flags those scenes through the consistency gate
 instead.
 

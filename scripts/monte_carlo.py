@@ -18,7 +18,7 @@ fix and scores against the planted truth. Regimes:
                bandwidth) merge with the direct path and bias the TDOA
                by O(1-3 samples) — estimator physics, not a defect
                (the direct-path-preferring refinement already rejects
-               the worse trade, BENCHLOG round 1); bounds reflect it
+               the worse trade); bounds reflect it
   moving       30-150 m/s emitter, random heading, µs clocks —
                --solve-velocity path: CAF Doppler + deramp-and-
                correlate TDOAs + FDOA velocity solve. Scored against
@@ -413,7 +413,7 @@ def run_trial(regime: str, seed: int) -> dict:
         # FDOA-must-decide ghost regime (round-5 verdict item 6: "the
         # lane that would catch a power-calibration failure is the
         # least-exercised one"). Two structural facts confine the
-        # class (probed during round 5, BENCHLOG): true TDOA ghosts
+        # class (probed on the ghost calibration bases): true TDOA ghosts
         # are a 3-STATION phenomenon (4+ stations overdetermine the
         # set and the second intersection fails the candidate gate),
         # and at 3 stations the pair-Doppler space has rank 2 — any
@@ -453,8 +453,7 @@ def run_trial(regime: str, seed: int) -> dict:
         atol_tdoa, atol_fix = 1.0, 2500.0
     elif regime == "moving-interferer":
         # A static co-channel interferer UNDER a moving target: the
-        # joint lag-Doppler association (chip-validated in
-        # tpu_validate check 9) must separate the two emitters, hand
+        # joint lag-Doppler association must separate the two emitters, hand
         # the mover its own TDOA set, and solve its velocity from the
         # per-emitter CAF reads. The hardest composite regime: motion
         # smear + mixed correlation peaks + association, randomized.

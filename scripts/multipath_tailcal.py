@@ -3,7 +3,7 @@ item 3).
 
 The round-4 scalar inflation γ=5.0 met the pooled 3σ bar but is the
 wrong distribution family: the echo-bias maha distribution is
-heavy-tailed ("p95 maha 4.1-8.6 while p50 sits near 1" — BENCHLOG
+heavy-tailed ("p95 maha 4.1-8.6 while p50 sits near 1" in the
 multi-base recalibration), so one Gaussian scale over-suppresses the
 median 2.5-3× (p50 maha ~0.4) while still under-covering the tail.
 This tool replaces it with a two-moment model. The fit itself revealed

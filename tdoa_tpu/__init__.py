@@ -1,8 +1,8 @@
-"""tdoa_tpu — a TPU-native (JAX/XLA/Pallas) TDOA radio-geolocation framework.
+"""tdoa_tpu — a JAX/XLA TDOA radio-geolocation framework for one or more GPUs.
 
 Re-implements the capabilities of the KX0U-Jim/tdoa-geolocation reference
 system (RTL-SDR dual-frequency capture → cross-correlation → hyperbolic
-positioning) as a batched, fused, JIT-compiled TPU pipeline:
+positioning) as a batched, fused, JIT-compiled device pipeline:
 
 - ``tdoa_tpu.io``       — the ``.dat`` capture codec ([REF|TGT|REF] u8 IQ
                           blocks) and ``lat-lon-table.csv`` station geometry
@@ -17,8 +17,8 @@ positioning) as a batched, fused, JIT-compiled TPU pipeline:
                           sub-sample peak interpolation (replaces the
                           O(lag·N) loop at processor.go:646-736).
 - ``tdoa_tpu.dsp``      — FIR filters, FM quadrature discriminator +
-                          decimation (rtl_fm.c:427-544 capability, fused in
-                          Pallas), windows, SNR estimation.
+                          decimation (rtl_fm.c:427-544 capability),
+                          windows, SNR estimation.
 - ``tdoa_tpu.geo``      — WGS84/ECEF/ENU geodesy (processor.go:125-163,
                           1023-1045 semantics).
 - ``tdoa_tpu.solve``    — Gauss-Newton / Levenberg-Marquardt hyperbolic

@@ -30,8 +30,8 @@ def main(argv=None) -> int:
     p.add_argument("--max-lag", type=int, default=20000,
                    help="correlation search window, samples (default 20000)")
     p.add_argument("--seg-len", type=int, default=1 << 16,
-                   help="streaming segment length, samples (2^16 is the "
-                        "measured optimum on v5e)")
+                   help="streaming segment length, samples (default "
+                        "2^16)")
     p.add_argument("--weighting", default="ht",
                    choices=["ht", "ml", "phat", "scot", "none"])
     p.add_argument("--no-clock-correction", action="store_true",

@@ -65,8 +65,8 @@ def main(argv=None) -> int:
                         "transfer+compute after it. A window whose "
                         "final file sizes disagree with the expected "
                         "duration falls back to the batch path. "
-                        "Without --watch, complete files stream via "
-                        "the one-shot overlapped path instead. "
+                        "Without --watch, complete files stream "
+                        "through the same tail-ingest session. "
                         "(Standard IQ pipeline only: incompatible "
                         "with --solve-velocity and --multi-emitter>1)")
     p.add_argument("--multi-emitter", type=int, default=1, metavar="N",
@@ -194,6 +194,7 @@ def main(argv=None) -> int:
     # --min-stations files, fed every poll with whatever bytes the
     # writers have appended since. ep -> (TailIngest, {station: path}).
     sessions: dict = {}
+    warmed: set = set()  # station counts whose chunk programs compiled
     overlap_block = None
     if args.overlap_ingest is not None:
         # The collector's own sample math (cli/collector.py:147):
@@ -214,17 +215,21 @@ def main(argv=None) -> int:
         return views
 
     def ensure_sessions(done) -> None:
-        if overlap_block is None or args.watch is None:
+        if overlap_block is None:
             return
         for ep, files in windows.items():
             if ep in done or ep in sessions:
                 continue
             if len(files) < args.min_stations:
                 continue
-            sessions[ep] = (
-                proc.tail_session(sorted(files), overlap_block),
-                dict(files),
-            )
+            sess = proc.tail_session(sorted(files), overlap_block)
+            if args.watch is not None and len(files) not in warmed:
+                # Compile every chunk program before the writers start
+                # delivering, so no window pays a compile mid-stream
+                # (the geometry depends only on the station count here).
+                sess.warm()
+                warmed.add(len(files))
+            sessions[ep] = (sess, dict(files))
 
     def feed_sessions(done) -> None:
         nonlocal last_new

@@ -4,7 +4,8 @@ The reference approximates every filter with moving averages
 (processor.go:270-296 lowpass, 384-394 highpass-as-difference, 412-434
 notch cascade) — boxcars have terrible stopbands. Here filters are proper
 windowed-sinc FIRs designed on the host (numpy, tiny) and applied on
-device via ``lax.conv_general_dilated``, which XLA lowers onto the MXU.
+device via ``lax.conv_general_dilated`` (cuDNN or an XLA fusion on the
+GPU).
 Strided convolution fuses decimation into the same pass.
 """
 
@@ -82,6 +83,8 @@ def _conv1d(x: jax.Array, taps: jax.Array, stride: int) -> jax.Array:
         padding="SAME",
         dimension_numbers=("NCH", "OIH", "NCH"),
         preferred_element_type=jnp.float32,
+        # Keep the float32 FIR out of TF32 on the GPU.
+        precision=jax.lax.Precision.HIGHEST,
     )
     return y.reshape(*shape[:-1], y.shape[-1])
 

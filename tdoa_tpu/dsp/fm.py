@@ -3,16 +3,14 @@
 Capability of rtl_fm.c's discriminator pipeline (polar_discriminant at
 rtl_fm.c:427-434, fm_demod 517-544, decimation 302-392), which the
 reference project documents as the aid for correlation (README.md:3-7) but
-never wired into its processor. Rebuilt TPU-shaped:
+never wired into its processor. Rebuilt as:
 
 - the discriminator is the *pairwise-product* form — phase increments
   come from ``x[n]·conj(x[n−1])`` so there is no running state to
-  unwrap, and the whole signal demodulates as one vectorized VPU pass
-  (atan2), planar-complex so it runs on backends without complex dtype;
-- decimation is a strided windowed-sinc FIR riding the MXU
-  (dsp/filters.py), fused by XLA with the discriminator's elementwise
-  work. A hand-fused Pallas kernel lives in ops/pallas/fm_demod.py for
-  the HBM-bound long-capture path.
+  unwrap, and the whole signal demodulates as one vectorized
+  elementwise pass (atan2) on planar complex;
+- decimation is a strided windowed-sinc FIR (dsp/filters.py), which XLA
+  fuses with the discriminator's elementwise work.
 
 Demodulated audio is the preferred correlation domain for FM signals:
 receiver LO offsets become DC shifts (instead of rotating phasors) and
@@ -65,6 +63,7 @@ def fm_discriminate(x: C, sample_rate: float = 1.0) -> jax.Array:
     return inc * jnp.float32(sample_rate / (2.0 * jnp.pi))
 
 
+@jax.named_scope("fm_demod_decimate")
 def fm_demodulate(
     x: C,
     sample_rate: float,
@@ -78,6 +77,8 @@ def fm_demodulate(
     DC removal strips the receiver LO frequency offset (a constant
     instantaneous-frequency bias), standing in for rtl_fm's dc_block
     (rtl_fm.c:613). ``deviation_hz`` normalizes audio to ≈±1 full scale.
+    The name scope lets profiler traces attribute the stage's device
+    time to it.
     """
     d = fm_discriminate(x, sample_rate)
     d = remove_dc(d)
@@ -130,7 +131,7 @@ def ssb_demodulate(
     45°-phasing approximation that does NOT reject the opposite sideband
     (both sidebands survive it at equal magnitude). The true phasing
     method is ``I ∓ H{Q}`` with a Hilbert transformer H — USB audio is
-    ``(I − H{Q})/2``, LSB ``(I + H{Q})/2`` — implemented as one more MXU
+    ``(I − H{Q})/2``, LSB ``(I + H{Q})/2`` — implemented as one more
     FIR pass. Decimation runs first so the Hilbert FIR operates at the
     audio rate; its length scales with that rate so the rejection holds
     down to ``hilbert_transition_hz`` regardless of ``decim``.

@@ -6,7 +6,7 @@ samples with a Blackman-Harris window, then calls the mean of the top-10%
 bins "signal" and the bottom-50% "noise" (analyzer.go:239-265; the fast
 analyzer uses bottom-40%, fast_analyzer.go:203-204). We keep those
 percentile semantics (they define the calibrator's feedback signal) but
-compute the PSD with the MXU FFT over Welch-averaged windowed segments —
+compute the PSD with the planar FFT over Welch-averaged windowed segments —
 O(N·radix) and jittable.
 """
 
@@ -30,7 +30,7 @@ _WINDOWS = {"hann": hann, "blackman_harris": blackman_harris}
 def psd_welch(x: C, nfft: int = 8192, window: str = "blackman_harris") -> jax.Array:
     """Welch-averaged power spectral density over the last axis.
 
-    Splits into ⌊N/nfft⌋ segments, windows, transforms (MXU FFT), averages
+    Splits into ⌊N/nfft⌋ segments, windows, transforms (planar FFT), averages
     |X|². Returns [..., nfft] (two-sided, fftshift NOT applied).
     """
     n = x.re.shape[-1]

@@ -27,39 +27,32 @@ from tdoa_tpu.ops.cplx import C
 from tdoa_tpu.utils.constants import IQ_CENTER, IQ_SCALE, NUM_BLOCKS
 
 
-def bytes_to_iq_planar(raw: jax.Array, dtype=jnp.float32) -> C:
-    """Decode interleaved u8 I/Q bytes to planar (re, im) ``dtype``.
+def bytes_to_iq_planar(raw: jax.Array) -> C:
+    """Decode interleaved u8 I/Q bytes to planar float32 (re, im).
 
     ``raw`` is a uint8 array of even length ``2*n``; returns C with shape
-    ``[n]``. Jittable and TPU-legal (no complex dtype); runs on device so
-    only bytes cross the host↔device boundary (1 byte/component vs 8).
-
-    ``dtype=jnp.bfloat16`` decodes straight into the fused correlator's
-    native operand storage (ops/pallas/corr_accum.py) — same decode cost,
-    half the HBM written, and the hot kernel then reads true-bf16 with no
-    conversion pass. Quantization: u8 levels land within 2⁻⁸ relative of
-    their f32 values; delay estimates are unaffected (tests).
+    ``[n]``. Jittable (no complex dtype); runs on device so only bytes
+    cross the host↔device boundary (1 byte/component vs 8).
     """
     x = (raw.astype(jnp.float32) - IQ_CENTER) / IQ_SCALE
-    pairs = x.astype(dtype).reshape(-1, 2)
+    pairs = x.reshape(-1, 2)
     return C(pairs[:, 0], pairs[:, 1])
 
 
-def u16_to_iq_planar(packed: jax.Array, dtype=jnp.float32) -> C:
+def u16_to_iq_planar(packed: jax.Array) -> C:
     """Decode I/Q from little-endian-packed uint16 words (I = low byte,
-    Q = high byte) to planar (re, im) ``dtype``.
+    Q = high byte) to planar float32 (re, im).
 
-    This is the TPU-fast decode: ``bytes_to_iq_planar``'s
-    ``reshape(-1, 2)`` + column-slice deinterleave creates a
-    pathological [n, 2] layout that costs ~6 MINUTES of XLA compile
-    time on TPU for a 12 MB capture. Viewing the same bytes as uint16
-    on the host (free) turns the deinterleave into two bitwise ops on a
-    natural 1-D array — sub-second compile, same values bit-for-bit.
+    ``bytes_to_iq_planar``'s ``reshape(-1, 2)`` + column-slice
+    deinterleave works on an awkward [n, 2] layout. Viewing the same
+    bytes as uint16 on the host (free) turns the deinterleave into two
+    bitwise ops on a natural 1-D array — the same values, to within one
+    float32 ulp where XLA fuses the division differently.
     """
     lo = (packed & jnp.uint16(0xFF)).astype(jnp.float32)
     hi = (packed >> jnp.uint16(8)).astype(jnp.float32)
-    re = ((lo - IQ_CENTER) / IQ_SCALE).astype(dtype)
-    im = ((hi - IQ_CENTER) / IQ_SCALE).astype(dtype)
+    re = (lo - IQ_CENTER) / IQ_SCALE
+    im = (hi - IQ_CENTER) / IQ_SCALE
     return C(re, im)
 
 
@@ -76,7 +69,7 @@ def iq_bytes_as_u16(raw: np.ndarray) -> np.ndarray:
 
 def bytes_to_iq(raw: jax.Array) -> jax.Array:
     """Decode interleaved u8 I/Q bytes to complex64 samples (host/CPU
-    convenience — the TPU backend has no complex dtype; the device path is
+    convenience; the device path is
     ``bytes_to_iq_planar``)."""
     p = bytes_to_iq_planar(raw)
     return jax.lax.complex(p.re, p.im)
@@ -150,22 +143,21 @@ class DatCapture:
         )
 
 
-_decode16 = jax.jit(u16_to_iq_planar, static_argnames=("dtype",))
+_decode16 = jax.jit(u16_to_iq_planar)
 
 
-def load_dat(path: str, station: str = "", dtype=jnp.float32) -> DatCapture:
+def load_dat(path: str, station: str = "") -> DatCapture:
     """Load and decode a ``.dat`` capture file.
 
     The raw bytes are memory-mapped on the host, viewed as packed uint16
-    words (zero-copy), shipped to device, and widened to planar
-    ``dtype`` there (processor.go:166-205 equivalent, without the
-    host-side convert loop). The TPU processing path passes
-    ``dtype=jnp.bfloat16`` (see ``u16_to_iq_planar``).
+    words (zero-copy), shipped to device, and widened to planar float32
+    there (processor.go:166-205 equivalent, without the host-side
+    convert loop).
     """
     raw = np.memmap(path, dtype=np.uint8, mode="r")
     usable = (len(raw) // (2 * NUM_BLOCKS)) * (2 * NUM_BLOCKS)
     packed = iq_bytes_as_u16(np.ascontiguousarray(raw[:usable]))
-    iq = _decode16(jnp.asarray(packed), dtype=dtype)
+    iq = _decode16(jnp.asarray(packed))
     ref1, tgt, ref2 = split_blocks(iq)
     return DatCapture(ref1=ref1, tgt=tgt, ref2=ref2, path=path, station=station)
 

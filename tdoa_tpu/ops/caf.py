@@ -7,7 +7,7 @@ out. The CAF searches (τ, ν) jointly — the standard tool for moving-
 emitter TDOA/FDOA that the reference lacks entirely (its integration
 plan, snr_analysis.go:83-88, silently assumes zero Doppler).
 
-TPU-shaped implementation ("slow-time DFT"): segment cross-spectra are
+Implementation ("slow-time DFT"): segment cross-spectra are
 kept per-segment instead of summed, so Doppler compensation becomes a
 phase ramp over the *segment index* — one small matmul against a steering
 matrix turns S per-segment spectra into D Doppler-compensated coherent
@@ -19,7 +19,7 @@ Validity: within-segment rotation must be small (|ν|·T_seg ≲ 0.1), so
 the unambiguous Doppler span is ±1/(2·T_seg) — pick seg_len to cover the
 expected dynamics (docs: a 100 m/s emitter at 100 MHz is ~±33 Hz).
 
-Cost over plain correlation: the [S, F] per-pair spectra live in HBM
+Cost over plain correlation: the [S, F] per-pair spectra live in device memory
 (S·F·8 bytes per pair) and the finish stage runs once per Doppler bin.
 """
 
@@ -141,13 +141,18 @@ def caf_pairs(
     steer = exp_i(theta)  # C [D, S]
 
     # caf[m, D, F] = Σ_s steer[D, s] · white[m, s, F] — two real matmuls
-    # per component (MXU), contracting the segment axis.
+    # per component, contracting the segment axis. HIGHEST keeps the
+    # float32 contractions out of TF32 on the GPU.
+    hi = jax.lax.Precision.HIGHEST
     f32 = jnp.float32
+    ein = functools.partial(jnp.einsum, preferred_element_type=f32,
+                            precision=hi)
+
     def steer_mm(wr, wi):
-        rr = jnp.einsum("ds,msf->mdf", steer.re, wr, preferred_element_type=f32)
-        ri = jnp.einsum("ds,msf->mdf", steer.re, wi, preferred_element_type=f32)
-        ir = jnp.einsum("ds,msf->mdf", steer.im, wr, preferred_element_type=f32)
-        ii = jnp.einsum("ds,msf->mdf", steer.im, wi, preferred_element_type=f32)
+        rr = ein("ds,msf->mdf", steer.re, wr)
+        ri = ein("ds,msf->mdf", steer.re, wi)
+        ir = ein("ds,msf->mdf", steer.im, wr)
+        ii = ein("ds,msf->mdf", steer.im, wi)
         return C(rr - ii, ri + ir)
 
     caf_spec = steer_mm(white.re, white.im)  # [m, D, F]
@@ -170,13 +175,10 @@ def caf_pairs(
     # the |C|² weighting in the phase-slope fit favors coherent in-band
     # bins (whitened bins would vote uniformly, noise included).
     steer_best = C(steer.re[di], steer.im[di])  # [m, S]
-    f32 = jnp.float32
-    br = jnp.einsum("ms,msf->mf", steer_best.re, cross.re,
-                    preferred_element_type=f32) - jnp.einsum(
-        "ms,msf->mf", steer_best.im, cross.im, preferred_element_type=f32)
-    bi = jnp.einsum("ms,msf->mf", steer_best.re, cross.im,
-                    preferred_element_type=f32) + jnp.einsum(
-        "ms,msf->mf", steer_best.im, cross.re, preferred_element_type=f32)
+    br = (ein("ms,msf->mf", steer_best.re, cross.re)
+          - ein("ms,msf->mf", steer_best.im, cross.im))
+    bi = (ein("ms,msf->mf", steer_best.re, cross.im)
+          + ein("ms,msf->mf", steer_best.im, cross.re))
     delay, _, _ = _phase_slope_refine(C(br, bi), jnp.round(delay), fft_len,
                                       max_lag)
     dop_slice = jnp.take_along_axis(

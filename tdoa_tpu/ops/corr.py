@@ -3,12 +3,10 @@
 Replaces the reference's O(maxLag·N) time-domain search
 (processor.go:646-736, ~4×10¹⁰ MACs per pair) and its dead
 frequency-domain path (processor.go:539-616, which applied a forward DFT
-where an inverse belonged) with the textbook O(N log N) scheme, shaped for
-TPU:
+where an inverse belonged) with the textbook O(N log N) scheme:
 
 - complex signals are **planar** (re, im) float32 pairs (ops/cplx.py) and
-  every transform is the MXU-matmul FFT (ops/fft.py) — the target TPU
-  backend has no complex dtype or FFT primitive;
+  every transform is the DFT-matmul FFT (ops/fft.py);
 - signals for all stations are FFT'd **once per segment** and every station
   pair reuses them (cross-spectra are outer products on the pair axis);
 - long captures stream through fixed-size segments under ``lax.scan``,
@@ -33,7 +31,6 @@ argument), so the ±max_lag window carries no wraparound alias.
 from __future__ import annotations
 
 import functools
-import os
 from typing import NamedTuple, Optional, Union
 
 import jax
@@ -71,6 +68,7 @@ class CorrResult(NamedTuple):
     corr_im: jax.Array = None
 
 
+@jax.named_scope("segment_fft_accumulate")
 def _accumulate_cross_spectra(
     x: C,
     pair_idx,
@@ -83,9 +81,10 @@ def _accumulate_cross_spectra(
     spectral power. Returns (cross C[m, F], psd [n_st, F], energy [n_st]).
 
     ``seg_batch`` segments FFT together per scan step and reduce before
-    touching the accumulators. Measured on v5e: 1 wins (1540 vs 1403
-    Ms/s at 4 — the larger per-step working set costs more than the
-    carry traffic it saves); kept as a knob for other parts.
+    touching the accumulators (default 1).
+
+    The name scope lets profiler traces attribute this stage's device
+    time to it.
     """
     n_st, n = x.re.shape
     n_seg = n // seg_len
@@ -226,10 +225,15 @@ def _phase_slope_refine(cross: C, coarse_delay, fft_len: int,
     unbuilt).
     """
     f = jnp.asarray(mfft.fftfreq(fft_len))  # cycles/sample
+    # Weights relative to each row's largest: the fit is invariant to
+    # their scale, and raw |C|² of a long accumulation (|C| ~ seg·S
+    # after unit-RMS prescaling, ~7e7 at 100 s) makes the normal-
+    # equation products Σw·Σwf² overflow float32 to inf − inf = NaN.
     w = cross.abs2()
+    w = w / jnp.maximum(jnp.max(w, axis=-1, keepdims=True), 1e-30)
     # Deramp in angle space: angle(C·e^{+j2πfd}) == wrap(angle(C) + 2πfd)
     # exactly, and the wrap is one round+fma instead of a sin/cos pair
-    # and a complex multiply per bin (measured ~2 ms/block on v5e).
+    # and a complex multiply per bin.
     two_pi = jnp.float32(2.0 * jnp.pi)
     if 0 < max_lag and fft_len * (max_lag + 1) < 2**31:
         # The coarse delay is an integer, so f·d mod 1 = (k·d mod F)/F is
@@ -253,11 +257,10 @@ def _phase_slope_refine(cross: C, coarse_delay, fft_len: int,
         # derampled spectrum, wrap-free by construction.
         from tdoa_tpu.ops.cplx import exp_i
 
-        w0 = cross.abs2()
         de = exp_i(ramp)
         c = cross * de
         theta = jnp.arctan2(
-            jnp.sum(w0 * c.im, axis=-1), jnp.sum(w0 * c.re, axis=-1)
+            jnp.sum(w * c.im, axis=-1), jnp.sum(w * c.re, axis=-1)
         )
     else:
         theta = peak_phase
@@ -346,11 +349,8 @@ def _finish_correlation(
     if refine == "phase":
         coarse = jnp.round(delay)
         # Carrier-phase intercept = the complex correlation's phase at
-        # the peak lag — already computed in the windowed ifft. One-hot
-        # reduction instead of a gather: dynamic gathers trigger
-        # pathological XLA TPU compile times on this runtime (same class
-        # as the u16-decode hang; a take_along_axis here stalled the
-        # bench compile past 10 minutes).
+        # the peak lag — already computed in the windowed ifft (read
+        # with a one-hot reduction over the window).
         pos_i = jnp.round(pos).astype(jnp.int32)
         onehot = jnp.arange(win.shape[-1])[None, :] == pos_i[:, None]
         pr = jnp.sum(jnp.where(onehot, wr, 0.0), axis=-1)
@@ -421,45 +421,19 @@ def _zoom_corr_delay(
     ang2 = (2.0 * jnp.pi) * f[:, None] * delta[None, :]
     er, ei = jnp.cos(ang2), jnp.sin(ang2)
     f32 = jnp.float32
-    cre = (dre @ er - dim @ ei).astype(f32)
-    cim = (dre @ ei + dim @ er).astype(f32)
+    # HIGHEST: a float32 matmul may otherwise run in TF32 (10-bit
+    # mantissa) on the GPU, too coarse for a sub-sample peak.
+    mm = functools.partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
+    cre = (mm(dre, er) - mm(dim, ei)).astype(f32)
+    cim = (mm(dre, ei) + mm(dim, er)).astype(f32)
     win = jnp.sqrt(cre * cre + cim * cim)
     pos, _ = parabolic_peak(win)
     return coarse + (pos - jnp.float32(half_width))
 
 
-# Test hook: force the fused split-σ probe kernel off-TPU (it runs in
-# interpret mode there) so its routing is exercised on CPU.
-_FORCE_PROBE_KERNEL = False
-# Measurement hook: force the XLA probe path ON-TPU (A/B the probe
-# kernel within one process — scripts/headline_profile.py). Trace-time:
-# flip + jax.clear_caches() before retracing.
-_FORCE_PROBE_XLA = False
-
-
-def _slice_segs_per_step(n_pairs: int) -> int:
-    """Segments per kernel step for the per-slice split layout.
-    MEASURED NEGATIVE at 12 stations (round 5, SEGSTEP_AB.json): the
-    round-4 attribution blamed ~12 ms of the 98.5 ms device time on
-    the per-pair accumulator read-modify-write, 'halvable only by
-    multi-segment steps, blocked by the odd per-slice segment counts'.
-    Round 5 removed both blockers — exact zero-segment padding
-    (corr_accum.py) and a register-combined kernel restructure (one
-    RMW per accumulator per STEP) — and the within-run queued×5 A/B
-    measured segs_per_step=2 **18.5 ms SLOWER** (99.0 → 117.5 ms): the
-    2·n_st·segs [R, R] f32 per-segment spectra the combine must hold
-    live (~12.6 MB at 12 stations) cost more in VMEM
-    pressure/scheduling than the halved RMW saves. Default stays 1
-    everywhere; TDOA_TPU_SEGS_PER_STEP remains as the measurement
-    override that produced the artifact."""
-    env = os.environ.get("TDOA_TPU_SEGS_PER_STEP", "")
-    if env:
-        return max(1, int(env))
-    return 1
-
 # Consistency factor for the K-group split σ, CALIBRATED AGAINST TRUTH
 # (scripts/ellipse_calibration.py is the compliance test; the
-# fixed-geometry noisy experiment in BENCHLOG measured the numbers).
+# numbers come from a fixed-geometry noisy experiment).
 # K=2: the MAD constant 1.4826 (a 2-draw std IS one absolute deviation
 # whose median is 0.674σ); measured true/reported 1.05-1.27 after.
 # K=4: the chi-median constant alone (1.126) left σ 2.1x small —
@@ -485,15 +459,14 @@ def split_k(n_seg_total: int) -> int:
 
 def _combine_splits(
     accs, pair_idx, max_lag, weighting, eps, fft_len, n_seg_total,
-    pairs_static=None,
 ):
     """Full-capture CorrResult from K sub-capture accumulators, with the
     split empirical error bar folded into ``delay_std``.
 
     Each group's delay comes from a ±16-lag zoom DFT around the full
     estimate's coarse peak — running the full finish per group
-    multiplied the iFFT cost (a 27% headline-bench regression at K=2),
-    and cheap phase-slope probes collapse under phase wrap for
+    multiplied the iFFT cost K-fold, and cheap phase-slope probes
+    collapse under phase wrap for
     multi-sample errors (every group fits the same shrunken slope and
     the σ reads zero). A group whose true peak lies outside the zoom
     window saturates at ±16 and still reports a correspondingly large
@@ -507,7 +480,7 @@ def _combine_splits(
     selection bias dragged a half-wrecked capture's noise groups to
     the full estimate's delay (zoom delay 36.99 on pure noise,
     σ 0.003 where the honest answer is O(samples) — caught by the
-    on-chip split-half check). LOO weights are independent of group
+    split-half check). LOO weights are independent of group
     k's noise, so a corrupted group's probe diverges and σ_emp
     inflates as designed; on clean captures the LOO factor selects
     the same coherent band and σ is unchanged.
@@ -539,33 +512,11 @@ def _combine_splits(
         n_seg_total - (q + (np.arange(K) < r).astype(np.int64)), m
     ).astype(np.float32)
 
-    from tdoa_tpu.ops.pallas.zoom_probe import zoom_probe_supported
-    from tdoa_tpu.utils.platform import on_tpu
-
-    if (pairs_static is not None
-            and not _FORCE_PROBE_XLA
-            and (on_tpu() or _FORCE_PROBE_KERNEL)
-            and zoom_probe_supported(fft_len, max_lag, weighting,
-                                     K=K, m=m, n_st=n_st)):
-        # Fused probe kernel (ops/pallas/zoom_probe.py): LOO weighting
-        # + deramp + zoom DFT in one two-pass Pallas program. The XLA
-        # form below materializes ~a dozen [K·m, F] HBM tensors —
-        # measured ~20 ms of the 12-station device time — against
-        # ~0.5 ms of unavoidable accumulator reads. Requires static
-        # pairs (the LOO selector matmuls are trace-time constants);
-        # the planar path passes None and keeps the XLA form.
-        from tdoa_tpu.ops.pallas.zoom_probe import loo_zoom_delays_pallas
-
-        ds = loo_zoom_delays_pallas(
-            C(cr_g, ci_g), psd_g, pairs_static, coarse,
-            jnp.asarray(n_seg_loo_np), fft_len, eps,
-        )
-    else:
+    with jax.named_scope("split_sigma_probe"):
         # All K probes in ONE batched pass: groups stack along the pair
         # axis ([K·m, F]) with per-group station offsets in the pair
         # list, so the LOO weighting and the zoom DFT each run as a
-        # single op (K small matmuls → one; measured part of the
-        # round-2 headline regression). n_seg for the LOO debias is
+        # single op (K small matmuls → one). n_seg for the LOO debias is
         # per-row ([K·m, 1] broadcasts inside _weight_factor).
         loo_cross = C(
             (cr[None] - cr_g).reshape(K * m, -1),
@@ -652,7 +603,7 @@ def auto_seg_len(
     short captures — and (b) enough sub-accumulations for a multi-dof
     split σ (split_k). Long captures (n ≥ target·seg) keep the
     configured segment: their Welch average is already deep and the
-    larger FFT amortizes better on the MXU. Never shrinks below
+    larger FFT amortizes better. Never shrinks below
     ``max_lag`` (resolve_seg's alias-free requirement) or ``floor``
     (frequency-resolution floor: a 4096-pt segment at 2 Msps still
     puts ~100 bins across a 50 kHz signal)."""
@@ -713,7 +664,7 @@ def correlate_pairs_planar(
     fft_precision: str = "f32",  # "f32" | "bf16" (ops/fft.py)
     seg_batch: int = 1,
 ) -> CorrResult:
-    """All-pairs GCC cross-correlation, fully TPU-legal (no complex dtype).
+    """All-pairs GCC cross-correlation on planar (re, im) signals.
 
     ``seg_len=None`` correlates the whole signal in one FFT; otherwise the
     capture streams through ``seg_len``-sample segments with on-device
@@ -764,128 +715,6 @@ def correlate_pairs_planar(
     )
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "pairs", "max_lag", "weighting", "refine", "precision", "remove_dc",
-    ),
-)
-def correlate_pairs_fused(
-    x: C,  # [n_st, N] planar
-    pairs: tuple,  # static ((i, j), ...) pair tuple
-    max_lag: int = DEFAULT_MAX_LAG,
-    weighting: str = "ht",
-    eps: float = 1e-3,
-    refine: str = "phase",
-    precision: str = "f32",
-    remove_dc: bool = False,
-) -> CorrResult:
-    """GCC correlation through the fused Pallas segment kernel
-    (ops/pallas/corr_accum.py): FFT + cross-spectra + accumulation in one
-    VMEM-resident program, with DC removal and RMS prescaling folded into
-    the kernel's loads. Fixed geometry (seg 45056, fft 65536); the finish
-    stage is shared with the XLA path."""
-    from tdoa_tpu.ops.pallas.corr_accum import (
-        FFT_LEN,
-        SEG_LEN,
-        accumulate_cross_spectra_pallas,
-    )
-
-    # Alias-free window: the kernel's circular correlation equals the
-    # linear one only for |lag| ≤ fft_len − seg_len (the zero-pad slack).
-    if max_lag > FFT_LEN - SEG_LEN:
-        raise ValueError(
-            f"max_lag {max_lag} exceeds the fused kernel's alias-free "
-            f"window {FFT_LEN - SEG_LEN} (= fft {FFT_LEN} − seg {SEG_LEN}); "
-            f"use the XLA path (correlate_pairs_planar)"
-        )
-    pair_arr = jnp.asarray(np.array(pairs, np.int32))
-    n_seg_total = x.re.shape[1] // SEG_LEN
-    K = split_k(n_seg_total) if refine == "phase" else 0
-    if K == 0:
-        cross, psd, energy = accumulate_cross_spectra_pallas(
-            x, pairs, precision=precision, remove_dc=remove_dc,
-            prescale=True,
-        )
-        return _finish_correlation(
-            cross, psd, energy, pair_arr,
-            max_lag, weighting, eps, FFT_LEN, refine, n_seg=n_seg_total,
-        )
-    # Split empirical error bar — same scheme as the XLA path (see
-    # correlate_pairs_planar). Preferred layout: ONE grouped kernel
-    # invocation (n_splits=K accumulates the K contiguous slices into
-    # separate banks; the full accumulators are the banks' sum, total
-    # segment work is unchanged — K separate invocations cost ~11 ms
-    # extra per 100 s block, the round-2 headline regression). Grouped
-    # is taken ONLY when one invocation holds the whole pair list
-    # (fused_max_pairs with n_splits=K — VMEM double-buffering plus the
-    # chip-validated GROUPED_PAIR_WINDOW_CAP): a grouped invocation
-    # that pair-TILES re-runs every per-station FFT once per chunk,
-    # and the chip decomposition (scripts/pair_axis_profile.py, round
-    # 4) measured the kernel ~95% FFT-bound — at 12 stations the
-    # 3-chunk grouped layout tripled the dominant cost while the
-    # per-pair VPU work it amortizes is ~0.07 ms/pair/443-seg-block.
-    # Larger pair lists run the round-2 per-slice scheme instead: K
-    # single-bank (rank-3) invocations with the full ~128-pair budget —
-    # each FFT runs once, costing only K−1 extra pipeline fills
-    # (measured ~8 ms per 443-seg block at 8 stations, vs ~26 ms of
-    # redundant FFT the tiled grouped path would pay at 12). The
-    # 3-station headline always takes the grouped branch.
-    # prescale=False: per-slice unit-RMS scaling would break
-    # the slices-sum-to-full invariant under nonstationary power (a
-    # noise-only slice amplified to unit RMS outvotes the signal);
-    # instead scale every slice by the FULL capture's per-station RMS,
-    # exactly like the XLA path's single pre-split normalization.
-    from tdoa_tpu.ops.pallas.corr_accum import fused_max_pairs
-
-    end = n_seg_total * SEG_LEN
-    bounds = _split_bounds(n_seg_total, K, SEG_LEN)
-    n_st = x.re.shape[0]
-    if len(pairs) <= fused_max_pairs(n_st, remove_dc=remove_dc,
-                                     precision=precision, n_splits=K):
-        cross_g, psd_g, energy_g = accumulate_cross_spectra_pallas(
-            C(x.re[:, :end], x.im[:, :end]), pairs,
-            precision=precision, remove_dc=remove_dc, prescale=False,
-            n_splits=K,
-        )
-        energy_tot = jnp.sum(energy_g, axis=0)  # [n_st]
-        cross_k = [C(cross_g.re[k], cross_g.im[k]) for k in range(K)]
-        psd_k = [psd_g[k] for k in range(K)]
-    else:
-        # K single-bank invocations, each finalized in place. A
-        # raw-accumulator variant that batched the K finalizes into one
-        # [K, m, F] _finalize_banks call was built and measured SLOWER
-        # (within-run A/B, scripts/headline_profile.py
-        # raw_batched_finalize_saves_s = −6.3 ms at 12 stations: the
-        # stack copies and the 4×-larger finalize live set cost more
-        # than the fusion it buys), so the per-slice form stays.
-        slices = [
-            accumulate_cross_spectra_pallas(
-                C(x.re[:, bounds[k]:bounds[k + 1]],
-                  x.im[:, bounds[k]:bounds[k + 1]]), pairs,
-                precision=precision, remove_dc=remove_dc, prescale=False,
-                segs_per_step=_slice_segs_per_step(len(pairs)),
-            )
-            for k in range(K)
-        ]
-        energy_tot = sum(a[2] for a in slices)
-        cross_k = [a[0] for a in slices]
-        psd_k = [a[1] for a in slices]
-    sc = 1.0 / jnp.sqrt(jnp.maximum(energy_tot / float(end), 1e-30))
-    s_pair = (sc[pair_arr[:, 0]] * sc[pair_arr[:, 1]])[:, None]
-    sc2 = (sc * sc)[:, None]
-    accs = [
-        (C(cross_k[k].re * s_pair, cross_k[k].im * s_pair),
-         psd_k[k] * sc2,
-         jnp.full_like(energy_tot, float(bounds[k + 1] - bounds[k])))
-        for k in range(K)
-    ]
-    return _combine_splits(
-        accs, pair_arr, max_lag, weighting, eps, FFT_LEN, n_seg_total,
-        pairs_static=pairs,
-    )
-
-
 def correlate_pairs(
     x: Union[C, jax.Array],
     pair_idx: jax.Array,
@@ -896,8 +725,8 @@ def correlate_pairs(
     fft_len: Optional[int] = None,
     refine: str = "phase",
 ) -> CorrResult:
-    """Convenience wrapper accepting complex/real arrays (CPU/tests) or
-    planar pairs (the TPU path)."""
+    """Convenience wrapper accepting complex/real arrays or planar
+    pairs."""
     if not isinstance(x, C):
         x = from_complex(x)
     return correlate_pairs_planar(
@@ -926,9 +755,8 @@ def clock_correct_blocks(delays, stds, quality, peaks, corr_mag, corr_re,
                          corr_im, ref_geo_tdoa, clock_correction: bool = True):
     """Shared 3-block → clock-corrected-TDOA finalize tail.
 
-    Every correlation front-end (the batch XLA path, the fused Pallas
-    path, the shard_map mesh path, and the overlapped-ingest
-    accumulator) produces the same per-block fields; this is the ONE
+    Every correlation front-end (the batch path, the shard_map mesh
+    path, and the overlapped-ingest accumulator) produces the same per-block fields; this is the ONE
     copy of the algebra that turns them into ``process_blocks``'s
     result tuple, so the corrected-σ formula and the tuple layout can
     never diverge between paths.

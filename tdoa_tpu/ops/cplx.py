@@ -1,10 +1,8 @@
 """Planar complex arithmetic: (re, im) array pairs.
 
-The TPU backend this framework targets has no complex dtype (complex64
-arrays cannot even be materialized on device). Every device-side signal in
-the hot path is therefore *planar*: a pair of real float32 arrays. These
-helpers keep that code readable; XLA fuses them into the surrounding
-elementwise work at zero cost.
+Every device-side signal in the hot path is *planar*: a pair of real
+float32 arrays. These helpers keep that code readable; XLA fuses them
+into the surrounding elementwise work at zero cost.
 
 Host-side/CPU code (tests, simulators) may still use numpy/jnp complex —
 ``from_complex`` / ``to_complex`` convert at the boundary.

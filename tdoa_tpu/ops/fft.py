@@ -1,29 +1,28 @@
-"""MXU-native FFT: Cooley–Tukey four-step as batched DFT matmuls.
+"""Planar FFT: Cooley–Tukey four-step as batched DFT matmuls.
 
-The target TPU backend exposes no FFT primitive and no complex dtype, so
-this module builds the transform the way the hardware wants it: a
-power-of-two FFT of length N = N1·N2·… is decomposed into stages of
-radix ≤ 128, and each stage is a **dense DFT-matrix matmul** riding the
-128×128 MXU systolic array, with twiddle rotations fused as elementwise
-VPU work between stages:
+A power-of-two FFT of length N = N1·N2·… is decomposed into stages of
+radix ≤ 256, and each stage is a **dense DFT-matrix matmul**, with
+twiddle rotations fused as elementwise work between stages:
 
     x[(N1,N2)] --DFT_N1 along axis -2--> ·twiddle--> FFT_N2 along -1
               --> transpose(-1,-2) --> reshape(N)
 
-Complexity is O(N·Σradix) MACs instead of O(N log N) adds — a deliberate
-FLOP-for-structure trade: a 2²¹-point transform costs ~N·384 complex MACs
-≈ 6.4 GFLOP, which the MXU eats in ~100 µs, and every op is a large,
-static-shaped matmul XLA schedules perfectly. Complex values are planar
-(ops/cplx.py): one complex matmul = 4 real matmuls (or 3 via Karatsuba —
-MXU time is cheaper than the extra adds, so we use 4).
+Complexity is O(N·Σradix) MACs instead of O(N log N) adds — a
+FLOP-for-structure trade: every op is a large, static-shaped matmul.
+Complex values are planar (ops/cplx.py): one complex matmul = 4 real
+matmuls.
+
+Precision: the ``"f32"`` path pins every matmul to
+``Precision.HIGHEST``. Without the pin a float32 matmul may run in TF32
+on the GPU, whose 10-bit mantissa is as coarse as bf16's 8 for the
+phase-slope delay refinement. ``"bf16"`` keeps bf16 operands with f32
+accumulation at the backend's default precision.
 
 Twiddles are computed on device from integer index products reduced
 mod N *in integer arithmetic* before converting to angle, so phase error
 stays at f32 rounding even for multi-million-point transforms.
 
-Replaces: jnp.fft.fft/ifft in the correlation path (processor.go's DFT at
-processor.go:515-536 was O(N²) on a single thread; this is the TPU-era
-answer).
+Replaces: processor.go's O(N²) single-threaded DFT (processor.go:515-536).
 """
 
 from __future__ import annotations
@@ -37,13 +36,9 @@ import jax.numpy as jnp
 
 from tdoa_tpu.ops.cplx import C
 
-# Largest direct-DFT radix. 128 matches the MXU tile edge; larger bases
-# trade extra MXU FLOPs (the unit with headroom) for fewer recursion
-# levels and therefore fewer inter-stage relayouts (the observed
-# bottleneck). Env-tunable for benchmarking; read once at import.
-import os as _os
-
-_BASE = int(_os.environ.get("TDOA_FFT_BASE", "256"))  # 256 measured +7% on v5e
+# Largest direct-DFT radix: larger bases trade matmul FLOPs for fewer
+# recursion levels and therefore fewer inter-stage transposes.
+_BASE = 256
 
 
 @functools.lru_cache(maxsize=None)
@@ -74,25 +69,28 @@ def _twiddle(n1: int, n2: int) -> C:
 
 
 def _mm_cast(precision: str):
-    """Operand dtype for the DFT matmuls. ``bf16`` runs the MXU at full
-    rate with f32 accumulation — relative error ~1e-2 per stage, fine for
-    coarse peak search, not for the phase-slope path. Default f32."""
+    """Operand dtype for the DFT matmuls. ``bf16`` runs with f32
+    accumulation — relative error ~1e-2 per stage, fine for coarse peak
+    search, not for the phase-slope path. Default f32."""
     return jnp.bfloat16 if precision == "bf16" else jnp.float32
 
 
+def _mm_precision(precision: str):
+    """Matmul precision: HIGHEST on the f32 path (never TF32), the
+    backend default for bf16 operands."""
+    return None if precision == "bf16" else jax.lax.Precision.HIGHEST
+
+
 def _dft_last(x: C, n: int, precision: str) -> C:
-    """Direct DFT along the last axis via MXU matmul (n ≤ _BASE)."""
+    """Direct DFT along the last axis via matmul (n ≤ _BASE)."""
     cr, si = _dft_mats(n)
     t = _mm_cast(precision)
     wr, wi = jnp.asarray(cr, t), jnp.asarray(si, t)
     xr, xi = x.re.astype(t), x.im.astype(t)
-    f32 = jnp.float32
-    yr = jnp.matmul(xr, wr, preferred_element_type=f32) - jnp.matmul(
-        xi, wi, preferred_element_type=f32
-    )
-    yi = jnp.matmul(xr, wi, preferred_element_type=f32) + jnp.matmul(
-        xi, wr, preferred_element_type=f32
-    )
+    mm = functools.partial(jnp.matmul, preferred_element_type=jnp.float32,
+                           precision=_mm_precision(precision))
+    yr = mm(xr, wr) - mm(xi, wi)
+    yi = mm(xr, wi) + mm(xi, wr)
     return C(yr, yi)
 
 
@@ -107,18 +105,14 @@ def _fft_last(x: C, n: int, precision: str) -> C:
     cr, si = _dft_mats(n1)
     t = _mm_cast(precision)
     wr, wi = jnp.asarray(cr, t), jnp.asarray(si, t)
-    f32 = jnp.float32
+    ein = functools.partial(jnp.einsum, "kj,...jm->...km",
+                            preferred_element_type=jnp.float32,
+                            precision=_mm_precision(precision))
 
     def dft_axis2(r, i):
         # [..., n1, n2] with D[k1, j1]: einsum over j1.
         r, i = r.astype(t), i.astype(t)
-        yr = jnp.einsum("kj,...jm->...km", wr, r, preferred_element_type=f32) - (
-            jnp.einsum("kj,...jm->...km", wi, i, preferred_element_type=f32)
-        )
-        yi = jnp.einsum("kj,...jm->...km", wi, r, preferred_element_type=f32) + (
-            jnp.einsum("kj,...jm->...km", wr, i, preferred_element_type=f32)
-        )
-        return C(yr, yi)
+        return C(ein(wr, r) - ein(wi, i), ein(wi, r) + ein(wr, i))
 
     y = dft_axis2(x.re, x.im)
     y = y * _twiddle(n1, n2)

@@ -1,12 +1,12 @@
 """Multi-chip scaling: shard the capture's time axis over a device mesh.
 
 The reference has no software communication backend at all — its three
-stations share data by scp (SURVEY.md §2.5). The TPU-native scaling story
-is different: one long capture is **sequence-parallel** across chips.
-Each device holds a contiguous chunk of every station's signal, FFTs its
-local segments, and accumulates partial cross-power spectra; one
-``psum`` over the ICI ring merges the accumulators (a few MB — tiny next
-to the capture), and the cheap tail (GCC weighting, inverse FFT, peak
+stations share data by scp (SURVEY.md §2.5). Here one long capture is
+**sequence-parallel** across devices. Each device holds a contiguous
+chunk of every station's signal, FFTs its local segments, and
+accumulates partial cross-power spectra; one ``psum`` over the mesh
+(NCCL over NVLink on a multi-GPU host) merges the accumulators (a few
+MB — tiny next to the capture), and the cheap tail (GCC weighting, inverse FFT, peak
 search, solver) runs replicated. Communication volume is O(fft_len·pairs),
 independent of capture length — the design scales to arbitrarily long
 captures at near-perfect efficiency.
@@ -57,8 +57,6 @@ def correlate_pairs_sharded(
     eps: float = 1e-3,
     refine: str = "phase",
     axis: str = "sp",
-    accumulator: str = "xla",  # "xla" | "pallas" (fused kernel per chip)
-    pairs_static: Optional[tuple] = None,  # required for "pallas"
 ) -> CorrResult:
     """Sequence-parallel GCC correlation: time axis sharded over ``mesh``.
 
@@ -67,53 +65,23 @@ def correlate_pairs_sharded(
     replicated. Results are numerically identical to the single-chip path
     up to float reassociation (cross-segment edge products are dropped by
     segmentation in both paths).
-
-    ``accumulator="pallas"`` runs the fused VMEM-resident segment kernel
-    (ops/pallas/corr_accum.py) on every chip's local chunk — the
-    max-performance configuration: per-chip Pallas compute, one XLA psum
-    over ICI.
     """
     d = mesh.shape[axis]
     n_st, n = x.re.shape
     per = (n // d)
-    if accumulator == "pallas":
-        from tdoa_tpu.ops.pallas.corr_accum import (
-            FFT_LEN,
-            SEG_LEN,
-            accumulate_cross_spectra_pallas,
-        )
-
-        if pairs_static is None:
-            raise ValueError("pallas accumulator needs a static pair tuple")
-        if max_lag > FFT_LEN - SEG_LEN:
-            raise ValueError(
-                f"max_lag {max_lag} exceeds the fused kernel's alias-free "
-                f"window {FFT_LEN - SEG_LEN}; use accumulator='xla'"
-            )
-        per = (per // SEG_LEN) * SEG_LEN
-        if per == 0:
-            raise ValueError(
-                f"per-device chunk {n // d} is shorter than one kernel "
-                f"segment (SEG_LEN={SEG_LEN}); fewer devices or "
-                f"accumulator='xla'"
-            )
-        fft_len = FFT_LEN
-    else:
-        seg_len_r, fft_len = resolve_seg(per, max_lag, seg_len, None)
+    seg_len_r, fft_len = resolve_seg(per, max_lag, seg_len, None)
     use = per * d
     x = C(x.re[:, :use], x.im[:, :use])
 
     run = _sharded_program(
-        mesh, axis, accumulator, pairs_static,
-        seg_len_r if accumulator != "pallas" else None,
-        fft_len, max_lag, weighting, eps, refine,
+        mesh, axis, seg_len_r, fft_len, max_lag, weighting, eps, refine,
     )
     return run(x, pair_idx)
 
 
 @functools.lru_cache(maxsize=None)
-def _sharded_program(mesh, axis, accumulator, pairs_static, seg_len_r,
-                     fft_len, max_lag, weighting, eps, refine):
+def _sharded_program(mesh, axis, seg_len_r, fft_len, max_lag, weighting,
+                     eps, refine):
     """Build (once per configuration) the jitted shard_map program.
 
     The closure must NOT be rebuilt per call: a fresh function identity
@@ -123,41 +91,18 @@ def _sharded_program(mesh, axis, accumulator, pairs_static, seg_len_r,
     so an lru_cache keyed on them gives each configuration exactly one
     compiled program.
     """
-    if accumulator == "pallas":
-        from tdoa_tpu.ops.pallas.corr_accum import (
-            SEG_LEN,
-            accumulate_cross_spectra_pallas,
-        )
-    # The pallas variant disables shard_map's varying-axis typing: the
-    # kernel's internals mix mesh-varying data with invariant constants,
-    # which the checker (and the CPU interpreter) cannot type; numerics
-    # are unaffected (verified against the XLA path).
     @functools.partial(
         shard_map,
         mesh=mesh,
         in_specs=(C(P(None, axis), P(None, axis)), P(None)),
         out_specs=CorrResult(P(), P(), P(), P(), P(), P(), P()),
-        check_vma=(accumulator != "pallas"),
     )
     def run(xl: C, pairs):
         local_n = xl.re.shape[1]
-        if accumulator == "pallas":
-            # bf16 operands on real hardware; the CPU interpreter (mesh
-            # dry runs) emulates bf16 matmuls pathologically slowly and
-            # f32 validates the identical sharding/psum program.
-            from tdoa_tpu.utils.platform import on_tpu
-
-            cross, psd, energy = accumulate_cross_spectra_pallas(
-                xl, pairs_static,
-                precision="bf16" if on_tpu() else "f32",
-                prescale=False,
-            )
-            local_segs = local_n // SEG_LEN
-        else:
-            cross, psd, energy = _accumulate_cross_spectra(
-                xl, pairs, seg_len_r, fft_len
-            )
-            local_segs = local_n // seg_len_r
+        cross, psd, energy = _accumulate_cross_spectra(
+            xl, pairs, seg_len_r, fft_len
+        )
+        local_segs = local_n // seg_len_r
         # Total averaged segments behind the psum'd accumulators —
         # debiases the HT coherence exactly like the single-chip path.
         d = mesh.shape[axis]
@@ -216,19 +161,12 @@ def process_blocks_sharded(
     weighting: str = "ht",
     clock_correction: bool = True,
     axis: str = "sp",
-    accumulator: str = "xla",  # "xla" | "pallas" (fused kernel per chip)
-    pairs_static: Optional[tuple] = None,  # base pairs, for "pallas"
 ):
     """The full multi-chip processing step: all 3 blocks × all pairs,
     sequence-parallel, with clock correction. Mirrors
     pipeline.process_blocks but sharded; returns the same 10-tuple
     (..., corrected_std, tgt_correlation_window, tgt_std,
     block_windows_complex).
-
-    ``accumulator="pallas"`` runs the fused segment kernel on every
-    chip's local chunk — the max-performance multi-chip configuration
-    (``pairs_static`` is the per-block pair tuple, e.g.
-    ``((0,1),(0,2),(1,2))``; the 3-block offsets are applied here).
     """
     n_st = ref1.re.shape[0]
     m = pair_idx.shape[0]
@@ -238,17 +176,9 @@ def process_blocks_sharded(
     xi = xi - jnp.mean(xi, axis=-1, keepdims=True)
     offsets = jnp.arange(3, dtype=jnp.int32)[:, None, None] * n_st
     all_pairs = (pair_idx[None, :, :] + offsets).reshape(3 * m, 2)
-    all_pairs_static = None
-    if pairs_static is not None:
-        all_pairs_static = tuple(
-            (i + b * n_st, j + b * n_st)
-            for b in range(3)
-            for (i, j) in pairs_static
-        )
     res = correlate_pairs_sharded(
         C(xr, xi), all_pairs, mesh,
         max_lag=max_lag, seg_len=seg_len, weighting=weighting, axis=axis,
-        accumulator=accumulator, pairs_static=all_pairs_static,
     )
     return clock_correct_blocks(
         res.delay.reshape(3, m),

@@ -92,10 +92,8 @@ def template_iq(
     from tdoa_tpu.dsp.fm import fm_modulate
 
     n_res = int(round(len(audio) * sample_rate / audio_fs))
-    # Host-side prep, pinned to CPU: resample_fft is jnp.fft (no FFT
-    # primitive on the TPU backend — the device compute path uses the
-    # planar MXU FFT instead), and this runs once per recording at
-    # audio scale. The planar f32 template transfers to the device
+    # Host-side prep, pinned to CPU: resample_fft is jnp.fft at audio
+    # scale and runs once per recording. The planar f32 template transfers to the device
     # when the matched filter consumes it.
     with jax.default_device(jax.local_devices(backend="cpu")[0]):
         a = resample_fft(jnp.asarray(audio, jnp.float32), n_res)
@@ -132,7 +130,6 @@ def match_template_audio(
     """
     from tdoa_tpu.dsp.fm import fm_demodulate
     from tdoa_tpu.ops.corr import correlate_pairs_planar
-    from tdoa_tpu.utils.platform import on_tpu
 
     n_st = tgt.re.shape[0]
     xr = jnp.concatenate(
@@ -142,23 +139,7 @@ def match_template_audio(
     xr = xr - jnp.mean(xr, axis=-1, keepdims=True)  # capture DC (u8 center)
     xi = xi - jnp.mean(xi, axis=-1, keepdims=True)
 
-    if on_tpu():
-        # The XLA conv relayout explodes HBM at full rate (see
-        # process_blocks mode="fm"); the fused Pallas demod kernel is
-        # the TPU path. Group delay differs from the XLA FIR by a
-        # constant — common to stations AND template, so it cancels.
-        from tdoa_tpu.ops.pallas.fm_demod import fm_demod_decimate_pallas
-
-        chans = [
-            fm_demod_decimate_pallas(
-                C(xr[k], xi[k]), sample_rate, decim=decim
-            )
-            for k in range(n_st + 1)
-        ]
-        audio = jnp.stack(chans)
-        audio = audio - jnp.mean(audio, axis=-1, keepdims=True)
-    else:
-        audio = fm_demodulate(C(xr, xi), sample_rate, decim=decim)
+    audio = fm_demodulate(C(xr, xi), sample_rate, decim=decim)
 
     # Robust click limiter: near the FM threshold the discriminator
     # emits impulsive clicks whose amplitude dwarfs the program; they

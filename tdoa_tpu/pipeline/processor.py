@@ -1,7 +1,7 @@
 """The end-to-end TDOA processor: captures → TDOAs → position fix.
 
 Capability parity with processor.go's ProcessTDOA (processor.go:739-929),
-rebuilt TPU-first:
+rebuilt as one batched device program:
 
 - all three blocks of all stations are correlated in ONE batched jitted
   program: signals stack to ``[3·n_st, L]`` and the per-block station pairs
@@ -55,9 +55,9 @@ class ProcessorConfig:
     tgt_freq: float
     sample_rate: float = DEFAULT_SAMPLE_RATE
     max_lag: int = DEFAULT_MAX_LAG
-    # Streaming segment length. 2^16 measured fastest on v5e (3.41 GS/s
-    # vs 1.54 at 2^21 — smaller working sets win even with 30% FFT zero-padding
-    # overhead); the 20000-sample search window bounds how small segments can go.
+    # Streaming segment length; the 20000-sample search window bounds how
+    # small segments can go (resolve_seg shrinks the segment by max_lag
+    # to keep the FFT at 2^16).
     seg_len: Optional[int] = 1 << 16
     weighting: str = "ht"  # Hannan-Thomson ML weighting (ops/corr.py)
     clock_correction: bool = True
@@ -67,10 +67,6 @@ class ProcessorConfig:
     # Like the reference's 1 s truncation (processor.go:772-783) but
     # optional: None processes the full capture.
     truncate_samples: Optional[int] = None
-    # Correlator backend: "auto" uses the fused Pallas kernel on TPU
-    # (ops/pallas/corr_accum.py — ~2x, BENCHLOG) when the geometry
-    # allows, else the XLA scan path. "xla"/"pallas" force.
-    accumulator: str = "auto"
     # Multi-emitter resolution: >1 separates up to this many co-channel
     # emitters from the per-pair top-K correlation peaks by TDOA
     # cycle-consistency (solve/association.py) and solves each set.
@@ -301,7 +297,6 @@ class EmitterFix:
     static_argnames=(
         "max_lag", "seg_len", "weighting", "clock_correction", "mode",
         "fm_decim", "sample_rate", "fft_precision", "seg_batch",
-        "accumulator", "pairs_static",
     ),
 )
 def process_blocks(
@@ -319,8 +314,6 @@ def process_blocks(
     sample_rate: float = DEFAULT_SAMPLE_RATE,
     fft_precision: str = "f32",
     seg_batch: int = 1,
-    accumulator: str = "xla",  # "xla" | "pallas" (needs pairs_static)
-    pairs_static: Optional[Tuple[Tuple[int, int], ...]] = None,
 ):
     """The fused device program: 3 blocks × all pairs → corrected TDOAs.
 
@@ -332,8 +325,7 @@ def process_blocks(
     call; DC removal happens on-device (the standard preprocessing of
     processor.go:469-499 — the remaining filter cascade there exists to
     prop up a weak time-domain correlator and is superseded by GCC
-    weighting). Fully planar: runs on TPU backends without complex
-    support.
+    weighting). Fully planar (no complex dtype on device).
 
     ``mode="fm"`` correlates the FM-demodulated *audio* instead of raw
     IQ — the "FM audio demodulation to aid correlation" capability the
@@ -348,46 +340,8 @@ def process_blocks(
     n_st = ref1.re.shape[0]
     m = pair_idx.shape[0]
 
-    if accumulator == "pallas" and mode == "iq" and pairs_static is not None:
-        # Fused VMEM-resident kernel per block (ops/pallas/corr_accum.py),
-        # all three chained in this one jit (single dispatch). No
-        # concatenated [3n, L] copy — at 100 s captures that copy alone
-        # is 4.8 GB and OOMs HBM. bf16 DFT operands — measured
-        # indistinguishable from f32 on delays, ~2x end-to-end (BENCHLOG).
-        from tdoa_tpu.ops.corr import correlate_pairs_fused
-
-        # remove_dc stays IN-KERNEL: a pre-demean pass (matching the
-        # XLA path below) was built and measured a within-noise
-        # regression at 12 stations (queued full 105.0 → 106.0 ms) —
-        # the isolated probe's 8.4 ms "per-invocation DC finalize
-        # share" did not survive the end-to-end A/B (XLA fuses the DC
-        # algebra into the finalize at near-zero marginal cost), and
-        # the in-kernel form reads the signal once without a second
-        # bf16 rounding.
-        outs = [
-            correlate_pairs_fused(
-                blk, pairs_static, max_lag=max_lag,
-                weighting=weighting, precision="bf16", remove_dc=True,
-            )
-            for blk in (ref1, tgt, ref2)
-        ]
-        return clock_correct_blocks(
-            jnp.stack([o.delay for o in outs]),
-            jnp.stack([o.delay_std for o in outs]),
-            jnp.stack([o.quality for o in outs]),
-            jnp.stack([o.peak_value for o in outs]),
-            jnp.stack([o.corr for o in outs]),
-            jnp.stack([o.corr_re for o in outs]),
-            jnp.stack([o.corr_im for o in outs]),
-            ref_geo_tdoa, clock_correction,
-        )
-
-    # Blocks may arrive bf16 (the fused path's native storage); the XLA
-    # path computes in f32.
-    xr = jnp.concatenate(
-        [ref1.re, tgt.re, ref2.re], axis=0).astype(jnp.float32)  # [3*n_st, L]
-    xi = jnp.concatenate(
-        [ref1.im, tgt.im, ref2.im], axis=0).astype(jnp.float32)
+    xr = jnp.concatenate([ref1.re, tgt.re, ref2.re], axis=0)  # [3*n_st, L]
+    xi = jnp.concatenate([ref1.im, tgt.im, ref2.im], axis=0)
     xr = xr - jnp.mean(xr, axis=-1, keepdims=True)  # DC removal
     xi = xi - jnp.mean(xi, axis=-1, keepdims=True)
     # Pair lists for each block, offset into the stacked station axis.
@@ -395,33 +349,7 @@ def process_blocks(
     all_pairs = (pair_idx[None, :, :] + offsets).reshape(3 * m, 2)
 
     if mode == "fm":
-        from tdoa_tpu.utils.platform import on_tpu
-
-        if on_tpu():
-            # The XLA demod path's 1-wide-channel conv relayouts the
-            # full-rate signal into a convolution tiling that costs
-            # ~28x the tensor size in HBM — a 100 s capture requests
-            # 34 GB and fails to compile. The fused Pallas kernel
-            # (discriminator + polyphase decimation, VMEM-resident
-            # intermediates) is the TPU path; its constant group-delay
-            # offset vs the XLA FIR is common to every station and
-            # cancels in pair correlation (tpu_validate check 5).
-            from tdoa_tpu.ops.pallas.fm_demod import (
-                fm_demod_decimate_pallas,
-            )
-
-            chans = [
-                fm_demod_decimate_pallas(
-                    C(xr[k], xi[k]), sample_rate, decim=fm_decim
-                )
-                for k in range(3 * n_st)
-            ]
-            audio = jnp.stack(chans)
-            # Receiver LO offset = constant discriminator bias; remove
-            # per channel (the kernel leaves DC to the caller).
-            audio = audio - jnp.mean(audio, axis=-1, keepdims=True)
-        else:
-            audio = fm_demodulate(C(xr, xi), sample_rate, decim=fm_decim)
+        audio = fm_demodulate(C(xr, xi), sample_rate, decim=fm_decim)
         x_corr = C(audio, jnp.zeros_like(audio))
         scale = float(fm_decim)
         max_lag_c = max(max_lag // fm_decim + 2, 16)
@@ -641,40 +569,6 @@ class TDOAProcessor:
         d = np.linalg.norm(st - tx, axis=-1)
         tau = d / SPEED_OF_LIGHT * self.config.sample_rate
         return tau[pairs[:, 1]] - tau[pairs[:, 0]]
-
-    def _fused_eligible(self, n_stations: int, min_block_samples: int) -> bool:
-        """Single source of truth for routing to the fused Pallas
-        correlator (kernel geometry + VMEM limits; ops/pallas/corr_accum).
-        Used by both the accumulator="auto" decision and the bf16-decode
-        decision so they can never diverge."""
-        from tdoa_tpu.ops.pallas.corr_accum import (
-            FFT_LEN,
-            SEG_LEN,
-            fused_capacity_ok,
-        )
-        from tdoa_tpu.utils.platform import on_tpu
-
-        cfg = self.config
-        n_pairs = n_stations * (n_stations - 1) // 2
-        return (
-            on_tpu()
-            and cfg.mode == "iq"
-            # VMEM capacity: ≤16 stations run in one kernel invocation
-            # (120 pairs, chip-validated); larger networks pair-tile
-            # across invocations (corr_accum.fused_max_pairs). Only a
-            # station count whose PER-STATION accumulators alone bust
-            # the budget falls back to XLA. Gate with n_splits=1
-            # (single-bank): correlate_pairs_fused prefers the grouped
-            # split-σ layout but itself falls back to K per-slice
-            # single-bank invocations when the grouped rank-4 window
-            # cap (GROUPED_PAIR_WINDOW_CAP) would over-tile the pair
-            # list — so single-bank capacity is the true eligibility
-            # bound.
-            and fused_capacity_ok(n_stations, n_pairs, remove_dc=True)
-            # Alias-free correlation window of the fixed kernel geometry.
-            and cfg.max_lag <= FFT_LEN - SEG_LEN
-            and min_block_samples >= SEG_LEN
-        )
 
     def _reject_outliers(
         self,
@@ -1148,7 +1042,7 @@ class TDOAProcessor:
         """Run the pipeline on in-memory blocks {station: (ref1, tgt, ref2)}.
 
         Blocks may be complex arrays (CPU/simulator path) or planar C
-        pairs (the TPU `.dat` ingest path).
+        pairs (the `.dat` ingest path).
 
         ``tail``: a ``pipeline.ingest.TailIngest`` session that already
         streamed (part of) this window while its files were growing —
@@ -1378,15 +1272,6 @@ class TDOAProcessor:
                         tgt, lo_ppm * 1e-6 * cfg.tgt_freq,
                         cfg.sample_rate)
 
-        accumulator = cfg.accumulator
-        if accumulator == "auto" and not host_mode:
-            accumulator = (
-                "pallas"
-                if self._fused_eligible(len(names), int(ref1.re.shape[1]))
-                else "xla"
-            )
-
-
         timer = self.timer
         stage = timer.stage if timer is not None else (
             lambda name: contextlib.nullcontext())
@@ -1432,8 +1317,6 @@ class TDOAProcessor:
                     mode=cfg.mode,
                     fm_decim=cfg.fm_decim,
                     sample_rate=cfg.sample_rate,
-                    accumulator=accumulator,
-                    pairs_static=tuple(map(tuple, pairs.tolist())),
                 )
                 if timer is not None:
                     timer.observe(out)
@@ -2341,32 +2224,9 @@ class TDOAProcessor:
     def load_files(
         self, dat_paths: Sequence[str]
     ) -> Dict[str, Tuple[C, C, C]]:
-        """Load ``.dat`` files into {station: (ref1, tgt, ref2)} blocks,
-        decoding into the dtype the configured correlator path wants."""
+        """Load ``.dat`` files into {station: (ref1, tgt, ref2)} float32
+        planar blocks."""
         import os
-
-        # When the fused Pallas correlator will run, decode straight
-        # into its native bf16 operand storage — the signal then reaches
-        # the kernel with zero conversion passes. Same _fused_eligible
-        # predicate as process_captures' accumulator="auto" decision
-        # (block length here from file size: 3 blocks × 2 bytes/sample),
-        # so captures that resolve to the XLA path keep full f32 decode
-        # precision.
-        cfg = self.config
-        block_samples = [
-            os.path.getsize(p) // (2 * 3)
-            for p in dat_paths if os.path.exists(p)
-        ]
-        if cfg.truncate_samples is not None:
-            block_samples = [
-                min(b, cfg.truncate_samples) for b in block_samples
-            ]
-        pallas_ok = (
-            cfg.accumulator in ("auto", "pallas")
-            and bool(block_samples)
-            and self._fused_eligible(len(set(dat_paths)), min(block_samples))
-        )
-        dtype = jnp.bfloat16 if pallas_ok else jnp.float32
 
         stage = self.timer.stage if self.timer is not None else (
             lambda name: contextlib.nullcontext())
@@ -2387,7 +2247,7 @@ class TDOAProcessor:
                         f"two capture files resolve to station '{st}' "
                         f"(second: {path}); pass one file per station"
                     )
-                cap: DatCapture = load_dat(path, station=st, dtype=dtype)
+                cap: DatCapture = load_dat(path, station=st)
                 captures[st] = (cap.ref1, cap.tgt, cap.ref2)
             if self.timer is not None:
                 self.timer.observe([captures[st][0].re])

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import jax
@@ -99,10 +99,7 @@ def acc_init(n_st: int, n_pairs: int, fft_len: int) -> AccState:
 
 
 @functools.partial(
-    jax.jit,
-    static_argnames=(
-        "seg_len", "fft_len", "pairs_static", "precision", "remove_dc",
-    ),
+    jax.jit, static_argnames=("seg_len", "fft_len", "remove_dc"),
 )
 def acc_update(
     state: AccState,
@@ -110,62 +107,28 @@ def acc_update(
     pair_idx: jax.Array,
     seg_len: int,
     fft_len: int,
-    pairs_static: Optional[Tuple[Tuple[int, int], ...]] = None,
-    precision: str = "bf16",
     remove_dc: bool = False,
 ) -> AccState:
     """Integrate one capture chunk into the accumulator. The chunk
     length must be a multiple of ``seg_len`` (checked at trace time) —
     a ragged tail would otherwise be dropped while still being counted.
-
-    Pass ``pairs_static`` (the pair list as a static tuple) to route the
-    chunk through the fused Pallas kernel on TPU when the accumulator
-    geometry matches it (fft_len 65536, seg_len 45056; pair lists past
-    one invocation's VMEM budget pair-tile, fused_max_pairs) — the
-    streaming path then integrates at the batch pipeline's kernel
-    speed. ``precision`` sets the kernel's matmul operand width:
-    "bf16" (default, ~2.5× faster; bf16 chunks flow straight through,
-    f32 chunks are truncated) or "f32" to keep f32 operands.
     """
     if chunk.re.shape[-1] % seg_len:
         raise ValueError(
             f"chunk length {chunk.re.shape[-1]} is not a multiple of "
             f"seg_len {seg_len}; pad or split the chunk"
         )
-    from tdoa_tpu.ops.pallas.corr_accum import (
-        FFT_LEN as _P_FFT,
-        SEG_LEN as _P_SEG,
-        accumulate_cross_spectra_pallas,
-        fused_capacity_ok,
+    if remove_dc:
+        # Per-chunk mean removal — the streaming equivalent of the
+        # batch path's per-block DC removal (and better: it tracks
+        # slow receiver DC drift chunk by chunk).
+        chunk = C(
+            chunk.re - jnp.mean(chunk.re, axis=-1, keepdims=True),
+            chunk.im - jnp.mean(chunk.im, axis=-1, keepdims=True),
+        )
+    cross, psd, energy = _accumulate_cross_spectra(
+        chunk, pair_idx, seg_len, fft_len
     )
-    from tdoa_tpu.utils.platform import on_tpu
-
-    if (pairs_static is not None and on_tpu() and fft_len == _P_FFT
-            and seg_len == _P_SEG and chunk.re.shape[-1] >= _P_SEG
-            # Same VMEM-capacity gate as the batch pipeline's
-            # _fused_eligible: single-bank (n_splits=1) capacity —
-            # streaming always accumulates single-bank (split-σ groups
-            # are a batch-finalize concept). Pair lists beyond one
-            # invocation's budget pair-tile inside the kernel wrapper.
-            and fused_capacity_ok(chunk.re.shape[0], len(pairs_static),
-                                  remove_dc=remove_dc)):
-        cross, psd, energy = accumulate_cross_spectra_pallas(
-            chunk, pairs_static, precision=precision, remove_dc=remove_dc
-        )
-    else:
-        chunk = C(chunk.re.astype(jnp.float32),
-                  chunk.im.astype(jnp.float32))
-        if remove_dc:
-            # Per-chunk mean removal — the streaming equivalent of the
-            # batch path's per-block DC removal (and better: it tracks
-            # slow receiver DC drift chunk by chunk).
-            chunk = C(
-                chunk.re - jnp.mean(chunk.re, axis=-1, keepdims=True),
-                chunk.im - jnp.mean(chunk.im, axis=-1, keepdims=True),
-            )
-        cross, psd, energy = _accumulate_cross_spectra(
-            chunk, pair_idx, seg_len, fft_len
-        )
     slot = state.n_chunks % 4
     sels = [(slot == k).astype(jnp.float32) for k in range(3)]
     segs = chunk.re.shape[-1] // seg_len

@@ -64,9 +64,8 @@ def _block_metrics(packed: jax.Array, nfft: int = 8192):
 
     ``packed`` is the capture's interleaved u8 bytes viewed as
     little-endian uint16 (I = low byte, Q = high byte — see
-    io.datfile.iq_bytes_as_u16). The byte-pair deinterleave via strided
-    slices of a u8 array costs minutes of XLA compile time on TPU; the
-    bitwise split is layout-friendly and byte-exact."""
+    io.datfile.iq_bytes_as_u16). The bitwise split avoids strided
+    slices of a u8 array, is layout-friendly and byte-exact."""
     i_u8 = packed & jnp.uint16(0xFF)
     q_u8 = packed >> jnp.uint16(8)
     i_bytes = i_u8.astype(jnp.float32)

@@ -149,8 +149,7 @@ def ghost_posterior(
         # fits NO candidate, and holding σ_p frozen makes the lane
         # wildly overconfident in what is then mostly calibration
         # noise — measured: a ±6 dB cross-band gain spread produced a
-        # WRONG swap at frozen σ_p (BENCHLOG round 5, ghost-fdoa
-        # regime). Flooring σ at min(s) collapses the lane's margins
+        # WRONG swap at frozen σ_p (ghost-fdoa soak regime). Flooring σ at min(s) collapses the lane's margins
         # exactly when its model is violated (the FDOA/prior lanes
         # then decide), and leaves clean scenes essentially unchanged
         # (their true-candidate scores sit at or below σ_p).

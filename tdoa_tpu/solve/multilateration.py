@@ -82,8 +82,11 @@ def solve_tdoa_enu(
         x, lam = state
         r, jac = residuals_jac(x)
         jtw = jac.T * w[None, :]  # [d, m]
-        h = jtw @ jac + lam * eye
-        g = jtw @ r
+        # HIGHEST: range differences of ~1e4 m need float32's full
+        # mantissa; TF32 would cost the fix metres.
+        hi = jax.lax.Precision.HIGHEST
+        h = jnp.matmul(jtw, jac, precision=hi) + lam * eye
+        g = jnp.matmul(jtw, r, precision=hi)
         step = jnp.linalg.solve(h, -g)
         x_try = x.at[:n_dim].add(step)
         better = cost(x_try) < jnp.sum(w * r * r)
@@ -279,11 +282,11 @@ class FixResult:
     ellipse: Optional[tuple] = None
     # Per-level radial scale factors (s1, s2, s3) for the 1σ/2σ/3σ
     # confidence CONTOURS relative to cov_en: the kσ contour is the
-    # k·s_k ellipse. None ⇒ Gaussian (1, 1, 1). Non-unit only in
-    # confirmed echo environments, where the fix-error distribution is
-    # heavy-tailed (Student-t radial calibration, dsp/multipath.py
-    # ECHO_TAIL_* — round-5: one Gaussian scale cannot calibrate both
-    # the median and the tail).
+    # k·s_k ellipse. None ⇒ Gaussian (1, 1, 1). Non-unit on every
+    # echo-engaged fix (multipath σ active), confirmed environment or
+    # not, where the fix-error distribution is heavy-tailed (Student-t
+    # radial calibration, dsp/multipath.py ECHO_TAIL_*: one Gaussian
+    # scale cannot calibrate both the median and the tail).
     conf_scales: Optional[tuple] = None
 
 

@@ -3,12 +3,12 @@ from tdoa_tpu.utils.constants import (
     DEFAULT_SAMPLE_RATE,
     DEFAULT_MAX_LAG,
 )
-from tdoa_tpu.utils.platform import on_tpu, default_interpret_mode
+from tdoa_tpu.utils.platform import select_platform, setup_compilation_cache
 
 __all__ = [
     "SPEED_OF_LIGHT",
     "DEFAULT_SAMPLE_RATE",
     "DEFAULT_MAX_LAG",
-    "on_tpu",
-    "default_interpret_mode",
+    "select_platform",
+    "setup_compilation_cache",
 ]

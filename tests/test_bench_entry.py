@@ -1,5 +1,5 @@
-"""Driver-surface smoke tests: bench.py and __graft_entry__ must never
-break — the round driver runs them unattended."""
+"""Entry-point smoke tests: bench.py and __graft_entry__ must never
+break — they run unattended."""
 
 import json
 import os
@@ -16,7 +16,6 @@ def test_bench_emits_valid_json():
         BENCH_SECONDS="0.3",
         BENCH_MAX_LAG="1000",
         BENCH_SEG=str(1 << 16),
-        BENCH_ACCUM="xla",
         PYTHONPATH=REPO,
     )
     r = subprocess.run(
@@ -30,48 +29,27 @@ def test_bench_emits_valid_json():
     assert d["unit"] == "Msamples/s/chip"
     assert d["value"] > 0
     assert "vs_baseline" in d
-    st = d["detail"]["steadiness"]
-    assert st["verdict"] in ("healthy", "congested")
-    assert st["reps"] in (5, 10)
+    # A CPU rehearsal names the CPU, never a card.
+    assert d["detail"]["device"]["platform"] == "cpu"
+    assert d["detail"]["compilation_cache"]["dir"] is None
     # Headline is min-of-reps: never slower than the median throughput.
     assert d["value"] >= d["detail"]["median_msamples_per_s"] - 1e-6
+    full = d["detail"]["full_path"]
+    assert full["full_path_s"] > 0 and full["overlap_path_s"] > 0
 
 
-def test_bench_congestion_gate():
-    """Steadiness gate (round-4 verdict item 1): with congestion-shaped
-    harness sleeps injected into 60% of the timed reps, the gate must
-    flag the run congested, extend to 10 reps, and keep the min-of-reps
-    headline close to the uncongested program latency (the sleeps only
-    ever ADD time, so the min must escape through the unperturbed
-    reps)."""
-    env = dict(os.environ)
-    env.update(
-        JAX_PLATFORMS="cpu",
-        BENCH_SECONDS="0.3",
-        BENCH_MAX_LAG="1000",
-        BENCH_SEG=str(1 << 16),
-        BENCH_ACCUM="xla",
-        BENCH_FULL="0",
-        BENCH_WARM="0",
-        BENCH_CONGESTION_SIM="0.6",
-        PYTHONPATH=REPO,
-    )
+def test_bench_refuses_implicit_cpu():
+    """Without an explicit JAX_PLATFORMS=cpu, a host with no GPU is
+    refused: bench.py never reports a CPU run as a device measurement."""
+    env = {k: v for k, v in os.environ.items() if k != "JAX_PLATFORMS"}
+    env.update(PYTHONPATH=REPO, JAX_PLATFORMS="", BENCH_SECONDS="0.3")
     r = subprocess.run(
         [sys.executable, os.path.join(REPO, "bench.py")],
-        capture_output=True, text=True, env=env, timeout=600,
+        capture_output=True, text=True, env=env, timeout=300,
     )
-    assert r.returncode == 0, r.stderr[-2000:]
-    line = [l for l in r.stdout.splitlines() if l.startswith("{")][-1]
-    d = json.loads(line)
-    st = d["detail"]["steadiness"]
-    assert st["verdict"] == "congested", st
-    assert st["reps"] == 10
-    assert st["spread_ratio_max_over_min"] > 1.5
-    # The robust headline survives: min-of-reps ≥ 2x the congested
-    # median would mean the min itself was congested — it must not be.
-    lat = d["detail"]["headline_latency_s"]
-    med = d["detail"]["steady_latency_s"]
-    assert lat <= med
+    assert r.returncode != 0
+    assert "JAX_PLATFORMS=cpu" in r.stderr
+    assert not [l for l in r.stdout.splitlines() if l.startswith("{")]
 
 
 def test_graft_entry_contract():
@@ -99,9 +77,9 @@ print("GRAFT OK")
 
 
 def test_dryrun_multichip_self_forces_cpu_mesh():
-    """Round-1 regression: the driver calls dryrun_multichip in a process
-    whose backend is ALREADY initialized (possibly on a broken TPU
-    client) with no device-count forcing in the environment. The
+    """Regression: dryrun_multichip may be called in a process whose
+    backend is ALREADY initialized (possibly on an accelerator client)
+    with no device-count forcing in the environment. The
     function must rebuild an 8-device CPU backend itself. Hermetic
     analogue: a 1-device CPU backend initialized before the call."""
     code = """

@@ -134,3 +134,48 @@ def test_refine_robust_to_carrier_phase_intercept(theta):
     b = b * np.complex64(np.exp(1j * theta))
     res = correlate_two(a, b, max_lag=64, weighting="ht")
     assert float(res.delay) == pytest.approx(-1.62, abs=0.02)
+
+
+def test_dc_heavy_input_stays_finite():
+    """A DC-heavy capture, mean-removed as ``process_blocks`` does, must
+    correlate to finite values under HT weighting (regression: an
+    8-station hardware run had one station's REF block peg every pair at
+    the window edge with quality=NaN)."""
+    from tdoa_tpu.ops.corr import correlate_pairs_planar
+    from tdoa_tpu.ops.cplx import C
+
+    seg = 45056
+    rng = np.random.default_rng(3)
+    sig = rng.standard_normal(2 * seg).astype(np.float32) * 0.05
+    re = np.stack([sig + 0.0055, np.roll(sig, 9) + 0.0048])
+    im = np.stack([sig * 0.5 - 0.003, np.roll(sig, 9) * 0.5 + 0.004])
+    re = re - re.mean(axis=-1, keepdims=True)
+    im = im - im.mean(axis=-1, keepdims=True)
+    res = correlate_pairs_planar(
+        C(jnp.asarray(re), jnp.asarray(im)), jnp.asarray([[0, 1]], jnp.int32),
+        max_lag=256, seg_len=seg, weighting="ht",
+    )
+    assert np.isfinite(np.asarray(res.corr)).all()
+    assert np.isfinite(float(res.quality[0]))
+    assert abs(float(res.delay[0]) - 9.0) < 0.1
+
+
+def test_ht_weight_clamps_negative_psd_bin():
+    """A PSD bin rounded slightly below zero must not NaN the HT sqrt
+    (the clamp in ``_weight_factor``) and so zero or poison every bin:
+    the bad bins get no weight, the healthy bins keep theirs."""
+    from tdoa_tpu.ops.corr import _weight_factor
+    from tdoa_tpu.ops.cplx import C
+
+    rng = np.random.default_rng(5)
+    f = 64
+    cross = C(jnp.asarray(rng.standard_normal((1, f)), jnp.float32),
+              jnp.asarray(rng.standard_normal((1, f)), jnp.float32))
+    psd = np.abs(rng.standard_normal((2, f))).astype(np.float32) + 1.0
+    psd[0, 3] = -1e-7
+    psd[1, 7] = -3e-9
+    w = _weight_factor(cross, jnp.asarray(psd),
+                       jnp.asarray([[0, 1]], jnp.int32), "ht", 1e-3, n_seg=4)
+    assert np.isfinite(np.asarray(w)).all()
+    assert float(w[0, 3]) == 0.0 and float(w[0, 7]) == 0.0
+    assert int(np.count_nonzero(np.asarray(w))) > f // 2

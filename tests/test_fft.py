@@ -1,4 +1,4 @@
-"""MXU FFT vs numpy reference: exactness across sizes, batching, padding."""
+"""DFT-matmul FFT vs numpy reference: exactness across sizes, batching, padding."""
 
 import numpy as np
 import jax.numpy as jnp

@@ -57,7 +57,7 @@ def test_dat_file_roundtrip(tmp_path):
     cap = load_dat(path, station="kx0u")
     assert cap.block_len == 64
     # u8 quantization error ≤ half an LSB per component → ≤ √2·0.5 LSB in
-    # complex magnitude. Blocks come back planar (TPU-legal); recombine.
+    # complex magnitude. Blocks come back planar; recombine.
     from tdoa_tpu.ops.cplx import to_complex
 
     tol = 0.5 * np.sqrt(2) / 127.5 + 1e-7
@@ -93,26 +93,29 @@ def test_station_from_filename():
     assert parse_epoch_from_filename("kx0u.dat") is None
 
 
-def test_load_dat_bf16_decode(tmp_path):
-    """bf16 decode (the TPU fused path's storage) stays within u8
-    quantization error of the f32 decode and flows through save/load."""
-    import jax.numpy as jnp
-    import numpy as np
-    from tdoa_tpu.io.datfile import load_dat, save_dat
+def test_load_dat_decodes_float32_exactly(tmp_path):
+    """``load_dat``'s packed-u16 decode and ``bytes_to_iq_planar`` both
+    yield float32 planes within one float32 ulp of the byte-wise decode
+    ``(b - 127.5) / 127.5`` of each interleaved I/Q byte (XLA may divide
+    by a reciprocal)."""
+    from tdoa_tpu.io.datfile import bytes_to_iq_planar
 
     rng = np.random.default_rng(11)
     n = 4096
-    blocks = [
-        (rng.standard_normal(n) * 0.4 + 1j * rng.standard_normal(n) * 0.4
-         ).astype(np.complex64)
-        for _ in range(3)
-    ]
-    p = str(tmp_path / "bf16-test.dat")
-    save_dat(p, *blocks)
-    cap32 = load_dat(p)
-    cap16 = load_dat(p, dtype=jnp.bfloat16)
-    assert cap16.ref1.re.dtype == jnp.bfloat16
-    for b32, b16 in ((cap32.ref1, cap16.ref1), (cap32.tgt, cap16.tgt)):
-        err = np.max(np.abs(np.asarray(b32.re, np.float32)
-                            - np.asarray(b16.re, np.float32)))
-        assert err < 4e-3  # one bf16 ulp at |x| <= 1
+    raw = rng.integers(0, 256, size=3 * 2 * n, dtype=np.uint8)
+    p = tmp_path / "f32-test.dat"
+    p.write_bytes(raw.tobytes())
+    cap = load_dat(str(p))
+    want = ((raw.astype(np.float32) - np.float32(127.5))
+            / np.float32(127.5)).reshape(3, n, 2)
+    via_u8 = bytes_to_iq_planar(jnp.asarray(raw))
+    for k, blk in enumerate((cap.ref1, cap.tgt, cap.ref2)):
+        assert blk.re.dtype == blk.im.dtype == jnp.float32
+        np.testing.assert_allclose(np.asarray(blk.re), want[k, :, 0],
+                                   rtol=0, atol=2.0 ** -23)
+        np.testing.assert_allclose(np.asarray(blk.im), want[k, :, 1],
+                                   rtol=0, atol=2.0 ** -23)
+        np.testing.assert_allclose(np.asarray(via_u8.re)[k * n:(k + 1) * n],
+                                   want[k, :, 0], rtol=0, atol=2.0 ** -23)
+        np.testing.assert_allclose(np.asarray(via_u8.im)[k * n:(k + 1) * n],
+                                   want[k, :, 1], rtol=0, atol=2.0 ** -23)

@@ -94,40 +94,16 @@ def test_sharded_process_blocks_end_to_end(omaha_stations):
     )
 
 
-def test_sharded_pallas_accumulator():
-    """The fused Pallas kernel per chip + one psum (max-performance
-    multi-chip configuration) matches planted truth on the CPU mesh."""
-    from tdoa_tpu.ops.pallas.corr_accum import SEG_LEN
+def test_sharded_process_blocks_full_step():
+    """The FULL multi-device step (3 blocks, clock correction): pair
+    offsets across the stacked block axis and the corrected TDOAs match
+    the planted geometry and the single-device program."""
+    from tdoa_tpu.pipeline.processor import process_blocks
 
-    n = SEG_LEN * 8
-    base = fm_source(jax.random.PRNGKey(3), n, 2e6)
-    sigs = [base, fractional_delay(base, jnp.float32(17.25)),
-            fractional_delay(base, jnp.float32(-33.5))]
-    x = _planar_stack(sigs)
-    pairs_t = ((0, 1), (0, 2), (1, 2))
-    pairs = jnp.asarray(np.array(pairs_t, np.int32))
-    res = correlate_pairs_sharded(
-        x, pairs, make_mesh(8), max_lag=128,
-        accumulator="pallas", pairs_static=pairs_t,
-    )
-    np.testing.assert_allclose(
-        np.asarray(res.delay), [17.25, -33.5, -50.75], atol=0.1
-    )
-
-
-def test_sharded_process_blocks_pallas_full_step():
-    """The FULL multi-chip step (3 blocks, clock correction) with the
-    fused kernel per chip: pair offsets across the stacked block axis
-    are built statically and the corrected TDOAs match the XLA-path
-    sharded result."""
-    from tdoa_tpu.parallel import process_blocks_sharded
-    from tdoa_tpu.ops.pallas.corr_accum import SEG_LEN
-
-    n = SEG_LEN * 8
+    n = 45056 * 8
     key = jax.random.PRNGKey(4)
     mesh = make_mesh(8)
-    pairs_t = ((0, 1), (0, 2), (1, 2))
-    pairs = jnp.asarray(np.array(pairs_t, np.int32))
+    pairs = jnp.asarray(np.array(((0, 1), (0, 2), (1, 2)), np.int32))
     ref_geo = jnp.zeros(3, jnp.float32)
 
     blocks = []
@@ -142,17 +118,18 @@ def test_sharded_process_blocks_pallas_full_step():
         blocks.append(_planar_stack(sigs))
     ref1, tgt, ref2 = blocks
 
-    out_p = process_blocks_sharded(
+    # Per-device segmentation differs from the single-device one, so
+    # the two agree at estimator precision, not bit-exactly.
+    out_s = process_blocks_sharded(
         ref1, tgt, ref2, pairs, ref_geo, mesh, max_lag=128,
-        accumulator="pallas", pairs_static=pairs_t,
     )
-    out_x = process_blocks_sharded(
-        ref1, tgt, ref2, pairs, ref_geo, mesh, max_lag=128,
+    out_1 = process_blocks(
+        ref1, tgt, ref2, pairs, ref_geo, max_lag=128, weighting="ht",
     )
     want = np.array([5.0, 11.0, 6.0])  # corrected geometric TDOAs
-    np.testing.assert_allclose(np.asarray(out_p[0]), want, atol=0.1)
+    np.testing.assert_allclose(np.asarray(out_s[0]), want, atol=0.1)
     np.testing.assert_allclose(
-        np.asarray(out_p[0]), np.asarray(out_x[0]), atol=0.05
+        np.asarray(out_s[0]), np.asarray(out_1[0]), atol=0.05
     )
 
 
